@@ -1,7 +1,7 @@
 """Multi-host execution: a jax.distributed cluster computing one exact variogram together.
 
-Spawns two coordinated CPU processes (the DCN path is identical for TPU pods: only the
-platform flag changes); each contributes its local shard of the sampling runs, and the
+Spawns two coordinated CPU processes (the coordination path is the same for accelerator
+hosts: only the platform changes); each contributes its local shard of the sampling runs, and the
 shard_map'd kernel psums per-lag-bin accumulators across every device of every process. The
 dowd estimator stays EXACT across the cluster — the global per-bin median is found by
 distributed bit-space radix selection, not by aggregating shard medians.

@@ -75,23 +75,24 @@ class TestMesh2D:
 
 
 class TestMatmulPrecisionPins:
-    """TPU dot_general defaults to bf16 multiplicands; every coordinate-sensitive device
-    solver must trace its matmuls at Precision.HIGHEST (ops.precision.pin_f32_matmuls).
-    Numerically invisible on the CPU backend, so this asserts on the traced jaxpr — the
-    un-pinned ICP brute path mis-registered by ~8 m on hardware (parity_icp_params 0.68)."""
+    """At default precision an accelerator may run float32 dot_general in reduced precision
+    (TF32 on a GPU); every coordinate-sensitive device solver must trace its matmuls at
+    Precision.HIGHEST (ops.precision.pin_f32_matmuls). Numerically invisible on the CPU
+    backend, so this asserts on the traced jaxpr — an un-pinned ICP brute path once
+    mis-registered by ~8 m on an accelerator."""
 
     @staticmethod
-    def _dot_precisions(jaxpr, acc=None):
+    def _dot_precisions(jaxpr, acc=None, primitive="dot_general"):
         acc = [] if acc is None else acc
         for eqn in jaxpr.eqns:
-            if eqn.primitive.name == "dot_general":
+            if eqn.primitive.name == primitive:
                 acc.append(eqn.params.get("precision"))
             for v in eqn.params.values():
                 for w in v if isinstance(v, (list, tuple)) else (v,):
                     if hasattr(w, "eqns"):  # raw Jaxpr (shard_map carries one directly)
-                        TestMatmulPrecisionPins._dot_precisions(w, acc)
+                        TestMatmulPrecisionPins._dot_precisions(w, acc, primitive)
                     elif hasattr(w, "jaxpr"):  # ClosedJaxpr (jit/while/cond/scan)
-                        TestMatmulPrecisionPins._dot_precisions(w.jaxpr, acc)
+                        TestMatmulPrecisionPins._dot_precisions(w.jaxpr, acc, primitive)
         return acc
 
     def _assert_all_highest(self, make_fn, *args, **kwargs):
@@ -111,7 +112,7 @@ class TestMatmulPrecisionPins:
         ref = jnp.zeros((64, 3))
         q = jnp.zeros((32, 3))
         # The NN kernel is deliberately matmul-FREE (direct differences, like the
-        # variogram kernels): no dot_general means no bf16 multiplicand risk at all.
+        # variogram kernels): no dot_general means no reduced-precision risk at all.
         jx = _jax.make_jaxpr(lambda r, qq: _brute_nearest(r, qq, chunk=16))(ref, q)
         assert not self._dot_precisions(jx.jaxpr), "NN kernel should not contain matmuls"
         norms = jnp.zeros((64, 3))
@@ -142,9 +143,21 @@ class TestMatmulPrecisionPins:
             z, rc, rc, raster, jnp.ones(n), jnp.zeros(n),
         )
 
+    def test_conv2d_multi_precision(self):
+        """The patches-method convolution pins full float32: a GPU may otherwise run a
+        float32 convolution in TF32."""
+        import jax as _jax
+        import jax.numpy as jnp
+        from jax.lax import Precision
+        from xdem_tpu.spatialstats import _conv2d_multi
+
+        jx = _jax.make_jaxpr(_conv2d_multi)(jnp.zeros((2, 16, 16)), jnp.zeros((3, 5, 5)))
+        precs = self._dot_precisions(jx.jaxpr, primitive="conv_general_dilated")
+        assert precs == [(Precision.HIGHEST, Precision.HIGHEST)], precs
+
     def test_pairwise_sq_dists_matmul_free(self):
         """The pairwise-distance kernel is deliberately matmul-free (direct differences):
-        no dot_general means no bf16 multiplicand risk and no HBM materialization."""
+        no dot_general means no reduced-precision risk and no (N, M) product in memory."""
         import jax as _jax
         import jax.numpy as jnp
         from xdem_tpu.spatialstats import _pairwise_sq_dists

@@ -50,3 +50,38 @@ class TestProfiler:
             assert "xdem_tpu.coreg.Coreg.apply" in names
         finally:
             Profiler.disable()
+
+
+class TestDispatchCounter:
+    # Client-side events as recorded in a jax.profiler trace of two jitted launches and one
+    # batched host->device copy on an NVIDIA H100 (JAX 0.9, StreamExecutor GPU client),
+    # with the device-side kernel and copy events of the same window.
+    GPU_EVENTS = [
+        {"ph": "X", "pid": 1, "name": "BatchedCopyToDeviceWithSharding: dispatch"},
+        {"ph": "X", "pid": 1, "name": "DevicePutWithSharding"},
+        {"ph": "X", "pid": 1, "name": "MemcpyH2D"},
+        {"ph": "X", "pid": 2, "name": "MemcpyH2D"},
+        {"ph": "X", "pid": 1, "name": "PjitFunction(<lambda>)"},
+        {"ph": "X", "pid": 1, "name": "PjRtStreamExecutorLoadedExecutable::Execute"},
+        {"ph": "X", "pid": 1, "name": "PjRtStreamExecutorLoadedExecutable::ExecuteHelper"},
+        {"ph": "X", "pid": 1, "name": "GpuExecutable::ExecuteThunks"},
+        {"ph": "X", "pid": 2, "name": "loop_add_fusion"},
+        {"ph": "X", "pid": 1, "name": "PjRtStreamExecutorLoadedExecutable::Execute"},
+        {"ph": "X", "pid": 2, "name": "input_reduce_fusion"},
+        {"ph": "M", "pid": 2, "name": "process_name", "args": {"name": "/device:GPU:0"}},
+    ]
+
+    def test_counts_gpu_client_events(self):
+        from xdem_tpu.profiler import count_trace_events
+
+        assert count_trace_events(self.GPU_EVENTS) == {"executions": 2, "h2d_transfers": 1}
+
+    def test_raises_without_known_launch_events(self):
+        import pytest
+
+        from xdem_tpu.profiler import count_trace_events
+
+        with pytest.raises(RuntimeError, match="no program-launch event"):
+            count_trace_events([])
+        with pytest.raises(RuntimeError, match="no program-launch event"):
+            count_trace_events([e for e in self.GPU_EVENTS if "Execute" not in e["name"]])

@@ -141,8 +141,8 @@ class TestEmpiricalVariogram:
 
     @pytest.mark.parametrize("estimator", ["matheron", "cressie", "dowd"])
     def test_chunked_grid_variogram_matches_flat(self, estimator):
-        """The memory-bounded scan path (used above ~2e8 pairs, where the flat sort OOMs a
-        16 GB chip) must reproduce the one-dispatch result exactly, incl. the radix-selected
+        """The memory-bounded scan path (used above ~2e8 pairs, where the flat sort needs
+        ~4 GB of device memory) must reproduce the one-dispatch result exactly, incl. the radix-selected
         global Dowd median."""
         import jax.numpy as jnp
 
@@ -171,8 +171,8 @@ class TestEmpiricalVariogram:
             np.testing.assert_allclose(np.asarray(g2), np.asarray(g1), rtol=1e-5, equal_nan=True)
 
     def test_dowd_sort_counts_match_bincount(self):
-        """Dowd's per-bin counts come from the sorted bin keys (jnp.bincount is a 0.5 s
-        scatter at 5e7 pairs on TPU); they must equal matheron's bincount counts exactly,
+        """Dowd's per-bin counts come from the sorted bin keys (jnp.bincount is a costly
+        scatter at 5e7 pairs); they must equal matheron's bincount counts exactly,
         including empty bins and the all-invalid case."""
         import jax.numpy as jnp
 
@@ -1077,7 +1077,7 @@ class TestApiHonestySweep:
     def test_mean_filter_method_validated(self, rng):
         img = rng.normal(size=(10, 10))
         with pytest.raises(ValueError, match="scipy' or 'numba"):
-            ss.mean_filter_nan(img, 3, method="tpu")
+            ss.mean_filter_nan(img, 3, method="cuda")
 
     def test_patches_verbose_logs(self, rng, caplog):
         import logging as _logging

@@ -31,7 +31,9 @@ def _add_common(parser: argparse.ArgumentParser) -> None:
 
 
 def _emit_template(template: dict[str, Any], dest: str) -> None:
-    import yaml
+    from xdem_tpu._misc import import_optional
+
+    yaml = import_optional("yaml", package_name="pyyaml")
 
     text = yaml.safe_dump(template, sort_keys=False)
     if dest == "-":
@@ -47,7 +49,7 @@ def main(argv: Sequence[str] | None = None, arg_list: Sequence[str] | None = Non
     (reference cli.py:28) and is an alias of ``argv``."""
     if argv is None and arg_list is not None:
         argv = list(arg_list)
-    parser = argparse.ArgumentParser(prog="xdem-tpu", description="TPU-native DEM analysis workflows")
+    parser = argparse.ArgumentParser(prog="xdem-tpu", description="DEM analysis workflows on JAX accelerators")
     subparsers = parser.add_subparsers(dest="command", required=True)
 
     topo = subparsers.add_parser("topo", help="Terrain-attribute workflow for one or several DEMs")

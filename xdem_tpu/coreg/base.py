@@ -5,7 +5,7 @@ subsampling machinery (:576-905), generic bin/fit engine (:906), affine matrix t
 (:1056-1286), matrix application tiers (:1290-1766), Coreg metadata/fit/apply (:1786-2875),
 CoregPipeline (:2880-3199).
 
-TPU-first re-design: dense numerics (matrix application, interpolation, the iterative
+Device re-design: dense numerics (matrix application, interpolation, the iterative
 small-rotation regrid) run as jitted gather kernels; the fixed-point regrid is a lax.while_loop;
 class shells, georeferencing and the rst/pts fallback ladder stay host-side.
 """

@@ -446,7 +446,7 @@ class Deramp(BiasCorr):
 
     def _bin_or_and_fit_biasvars(self, values, bias_vars, p0=None, **kwargs):
         # The 2-D polynomial is LINEAR in its coefficients: solve directly by least squares
-        # instead of iterative optimization (TPU-friendly and exact).
+        # instead of iterative optimization (one device solve, and exact).
         fb = self._meta["inputs"]["fitorbin"]
         if fb["fit_or_bin"] == "fit":
             order = self._meta["inputs"]["specific"]["poly_order"] + 1

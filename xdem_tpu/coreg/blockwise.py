@@ -4,7 +4,7 @@ Reference parity (/root/reference/xdem/coreg/blockwise.py): per-tile translation
 (_coreg_wrapper :117, NaN on failure), RANSAC plane fit per shift axis (_ransac :225-289),
 apply by warping with the interpolated shift field (:291-407).
 
-TPU-first re-design: tiles are fitted sequentially with the jitted solvers (uniform tile shape
+Device re-design: tiles are fitted sequentially with the jitted solvers (uniform tile shape
 => a single XLA compilation shared by all tiles; the per-tile solves batch naturally), and the
 apply is one device-wide gather warp with the per-pixel plane shift field, instead of per-tile
 point-cloud regridding through multiprocessing.
@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from xdem_tpu._misc import import_optional
 from xdem_tpu.coreg.base import Coreg
 from xdem_tpu.georef import Affine
 from xdem_tpu.ops.interp import interp_rowcol
@@ -62,7 +63,7 @@ def _gate_diverged_tiles(shifts_x: np.ndarray, shifts_y: np.ndarray, shifts_z: n
     A tile cannot evidence a translation larger than itself — such fits are divergent
     solves on ill-posed tiles (flat / single-aspect crops), and their values differ
     arbitrarily between backends (observed km-scale 'shifts' on a 10 m-shift pair that
-    disagreed TPU-vs-CPU by 30%+). The reference NaN-fills per-tile FAILURES
+    disagreed accelerator-vs-CPU by 30%+). The reference NaN-fills per-tile FAILURES
     (blockwise.py:139-154) and relies on RANSAC to reject the rest; gating divergence the
     same way keeps meta['outputs'] honest and backend-independent. Mutates in place and
     returns the diverged mask.
@@ -241,7 +242,8 @@ class BlockwiseCoreg:
 
         Seeded: an unseeded consensus search makes apply() nondeterministic run-to-run.
         """
-        from sklearn.linear_model import LinearRegression, RANSACRegressor
+        linear_model = import_optional("sklearn.linear_model", package_name="scikit-learn")
+        LinearRegression, RANSACRegressor = linear_model.LinearRegression, linear_model.RANSACRegressor
 
         if np.isnan(shifts).all():
             shifts = np.zeros_like(shifts)
@@ -454,7 +456,7 @@ def _blockwise_nuth_kaab_device(
 class BlockwiseNuthKaab(BlockwiseCoreg):
     """Blockwise NuthKaab with ALL tile solves batched in a single vmapped device program.
 
-    TPU-native variant of the per-tile fitting (SURVEY §2.7 P3): instead of looping tiles
+    Batched device variant of the per-tile fitting (SURVEY §2.7 P3): instead of looping tiles
     through independent fits, the raster is cut into uniform tiles, a fixed-size subsample is
     drawn per tile, and `_nuth_kaab_solve` is vmapped over the tile batch — one XLA program,
     one device dispatch for every tile. Aggregation and apply are inherited (robust RANSAC

@@ -7,14 +7,17 @@ get_cumulative_series :249).
 
 from __future__ import annotations
 
-from typing import Any, Literal, Sequence
+from typing import TYPE_CHECKING, Any, Literal, Sequence
 
 import numpy as np
-import pandas as pd
 
+from xdem_tpu._misc import import_optional
 from xdem_tpu.ddem import dDEM
 from xdem_tpu.dem import DEM
 from xdem_tpu.vector import Vector
+
+if TYPE_CHECKING:
+    import pandas as pd
 
 
 class DEMCollection:
@@ -27,6 +30,7 @@ class DEMCollection:
         outlines: Vector | dict[Any, Vector] | None = None,
         reference_dem: DEM | int = 0,
     ):
+        pd = import_optional("pandas")
         if timestamps is None:
             raise ValueError("Timestamps must be provided.")
         if len(timestamps) != len(dems):
@@ -60,6 +64,7 @@ class DEMCollection:
         Like the reference, the reference DEM itself yields an all-zero dDEM so the list
         stays index-aligned with `dems` (statistics methods skip it via `time == 0`).
         """
+        pd = import_optional("pandas")
         ddems = []
         ref = self.reference_dem
         ref_time = self.timestamps[self.reference_index]
@@ -123,6 +128,7 @@ class DEMCollection:
     def get_dh_series(self, outlines_filter: str | None = None, mask: Any = None,
                       nans_ok: bool = False) -> pd.DataFrame:
         """Weighted mean dh and area within the outlines per interval (demcollection.py:193)."""
+        pd = import_optional("pandas")
         if len(self.ddems) == 0:
             raise ValueError("dDEMs have not yet been calculated")
         rows = []
@@ -165,6 +171,7 @@ class DEMCollection:
         the reference's algorithm (demcollection.py:276-290). Interval-wise dDEM chains
         (this implementation's extension) chain-cumsum (later - earlier) values instead.
         """
+        pd = import_optional("pandas")
         if kind not in ("dh", "dv"):
             raise ValueError(f"Invalid kind: {kind}. Choices: ['dh', 'dv'].")
         if kind == "dh":

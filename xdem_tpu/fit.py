@@ -1,10 +1,10 @@
-"""Robust functional fitting: model functions, losses, and TPU-friendly optimizers.
+"""Robust functional fitting: model functions, losses, and device-friendly optimizers.
 
 Reference parity (/root/reference/xdem/fit.py): losses (rmse :42, huber_loss :54, soft_loss :69),
 models (sumsin_1d :87, polynomial_1d :115, polynomial_2d :127), anti-overfit order selection
 (_choice_best_order :157), robust_norder_polynomial_fit (:347), robust_nfreq_sumsin_fit (:463).
 
-TPU-first re-design: scipy's curve_fit/least_squares are replaced by a jit-compiled
+Device re-design: scipy's curve_fit/least_squares are replaced by a jit-compiled
 Levenberg-Marquardt solver (`levenberg_marquardt`) on fixed-size problems; IRLS with robust
 weights solves the (linear) polynomial fits in closed form; basin-hopping for the sum-of-sines
 stays a host loop driving jitted residual evaluations.
@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from xdem_tpu._misc import import_optional
 from xdem_tpu.ops.precision import pin_f32_matmuls
 from xdem_tpu.ops.transfer import unmask
 
@@ -291,7 +292,9 @@ def _sklearn_polyfit(x: np.ndarray, y: np.ndarray, degree: int, estimator_name: 
     fit() supports it (reference fit.py:323-329)."""
     import inspect
 
-    from sklearn.linear_model import HuberRegressor, LinearRegression, RANSACRegressor, TheilSenRegressor
+    lm = import_optional("sklearn.linear_model", package_name="scikit-learn")
+    HuberRegressor, LinearRegression = lm.HuberRegressor, lm.LinearRegression
+    RANSACRegressor, TheilSenRegressor = lm.RANSACRegressor, lm.TheilSenRegressor
 
     est_map = {
         "Linear": LinearRegression(),

@@ -10,6 +10,7 @@ demand with the system toolchain and loaded through ctypes.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import tempfile
@@ -37,16 +38,37 @@ class _GtInfo(ctypes.Structure):
     ]
 
 
+_BUILD_CMD = ("g++", "-O2", "-shared", "-fPIC", "-std=c++17")
+
+
 def _build_library() -> Path:
-    """Compile the codec to a shared library (cached next to the source)."""
-    out = _SRC.parent / "libxdemtiff.so"
-    if out.exists() and out.stat().st_mtime >= _SRC.stat().st_mtime:
+    """Compile the codec to a shared library next to the source, once per build key.
+
+    The library's name carries a hash of the source, the compiler's version and the build
+    command, so a library built elsewhere (another compiler, an older source) is never
+    loaded in place of a fresh build. The build writes a temporary file and renames it,
+    so concurrent processes never load a half-written library.
+    """
+    try:
+        version = subprocess.run([_BUILD_CMD[0], "--version"], check=True, capture_output=True,
+                                 text=True).stdout
+    except (OSError, subprocess.CalledProcessError) as err:
+        raise RuntimeError(f"The native GeoTIFF codec needs {_BUILD_CMD[0]}: {err}") from err
+    key = hashlib.sha256(_SRC.read_bytes() + version.encode() + " ".join(_BUILD_CMD).encode())
+    out = _SRC.parent / f"libxdemtiff-{key.hexdigest()[:16]}.so"
+    if out.exists():
         return out
-    cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", str(_SRC), "-o", str(out), "-lz"]
+    fd, tmp = tempfile.mkstemp(prefix=out.stem, suffix=".so.tmp", dir=_SRC.parent)
+    os.close(fd)
+    cmd = [*_BUILD_CMD, str(_SRC), "-o", tmp, "-lz"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
+        os.replace(tmp, out)
     except subprocess.CalledProcessError as err:
         raise RuntimeError(f"Failed to build the native GeoTIFF codec:\n{err.stderr}") from err
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return out
 
 

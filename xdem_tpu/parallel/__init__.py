@@ -2,8 +2,8 @@
 
 The reference scales raster size via tiled map-overlap multiprocessing with halo depth derived
 from the stencil radius (/root/reference/xdem/terrain/terrain.py:412-463) and per-tile writes.
-The TPU-native equivalent here is spatial domain decomposition over a jax.sharding.Mesh with
-shard_map + ppermute halo exchange over ICI.
+The device equivalent here is spatial domain decomposition over a jax.sharding.Mesh with
+shard_map + ppermute halo exchange between devices.
 """
 
 from xdem_tpu.parallel.mesh import as_mesh_1d, as_mesh_2d, make_mesh

@@ -415,7 +415,7 @@ def icp_solve_sharded(
     chunk: int = 2048,
 ):
     """The brute-force ICP registration with the REFERENCE cloud sharded across the mesh:
-    each device runs the blocked MXU distance argmin against its reference shard only
+    each device runs the blocked distance argmin against its reference shard only
     (the O(N*M) hot loop, memory and FLOPs / n_devices), then the per-shard winners merge
     with two pmin collectives: the global minimum distance, then the lowest global
     reference index among the points achieving it. Single-device jnp.argmin over the full

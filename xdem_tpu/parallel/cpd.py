@@ -1,12 +1,12 @@
 """Multi-chip CPD: the O(N*M) EM responsibility matrix tiled across devices.
 
 The single-chip CPD step (xdem_tpu/coreg/affine.py:_cpd_em_step) materializes the full (M, N)
-responsibility matrix in one device's HBM — the memory wall the reference notes for its own
+responsibility matrix in one device's memory — the memory wall the reference notes for its own
 numpy implementation (reference affine.py:1190-1294, "O(N*M) memory!"). Here the REFERENCE
 point axis (N) is sharded across the mesh: responsibilities normalize over the moving axis,
 which is local to every shard, so the E-step is exact per shard, and the M-step moments
-(P1, Np, the first moments, the cross-covariance, xPx) combine with jax.lax.psum over ICI.
-Memory per chip: M x N/n_devices.
+(P1, Np, the first moments, the cross-covariance, xPx) combine with jax.lax.psum.
+Memory per device: M x N/n_devices.
 
 `cpd_em_step_sharded` runs one EM step (building block); `cpd_solve_sharded` runs the FULL
 EM iteration as one lax.while_loop inside one shard_map — the user-facing `CPD().fit(...,
@@ -41,7 +41,7 @@ def _cpd_em_local(Xs, Yf, TYf, weight_cpd: float, s2, s2min, axis_name: str,
     Xl = jnp.where(finite[:, None], Xs, 0.0)  # (N/n, D)
     x2 = jnp.sum(Xl * Xl, axis=1)[None, :]
     t2 = jnp.sum(TYf * TYf, axis=1)[:, None]
-    Pl = t2 + x2 - 2.0 * TYf @ Xl.T  # (M, N/n) pairwise sq-dists via MXU
+    Pl = t2 + x2 - 2.0 * TYf @ Xl.T  # (M, N/n) pairwise sq-dists via a matmul
     Pl = jnp.exp(-Pl / (2 * s2))
     Pl = jnp.where(finite[None, :], Pl, 0.0)
     # Normalization over the MOVING axis: local to the shard — exact, no collective

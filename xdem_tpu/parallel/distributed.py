@@ -1,9 +1,9 @@
-"""Multi-host execution: jax.distributed initialization and cross-process meshes (DCN path).
+"""Multi-host execution: jax.distributed initialization and cross-process meshes (multi-host path).
 
-The reference is single-node (its only parallelism is multiprocessing.Pool). SURVEY §2.7
-names the TPU-native scaling story: XLA collectives over ICI within a host, and
-`jax.distributed` + DCN across hosts. This module makes that path executable — and testable
-on one machine by launching several coordinated CPU processes:
+The reference is single-node (its only parallelism is multiprocessing.Pool). Here XLA
+collectives span the devices of one host, and `jax.distributed` spans hosts. This module makes
+that path executable — and testable on one machine by launching several coordinated CPU
+processes:
 
     python -m xdem_tpu.parallel.distributed --coordinator 127.0.0.1:9876 \
         --num-processes 2 --process-id 0 --local-devices 4
@@ -26,16 +26,18 @@ import numpy as np
 
 def initialize_multihost(coordinator: str, num_processes: int, process_id: int,
                          local_devices: int = 1) -> None:
-    """Configure this process as one member of a multi-host JAX cluster (CPU-friendly).
+    """Configure this process as one member of a multi-host JAX cluster.
 
-    Must run before any JAX backend initialization: forces the CPU platform (the DCN
-    coordination path is identical for TPU pods — only the platform flag changes) and the
-    per-process virtual device count, then joins the coordination service.
+    Must run before any JAX backend initialization. The platform is whatever JAX resolves
+    (JAX_PLATFORMS or the default accelerator); only when it is the CPU does
+    ``local_devices`` set the per-process virtual device count. Then joins the
+    coordination service.
     """
     import jax
 
-    jax.config.update("jax_platforms", os.environ.get("XDEM_TPU_PLATFORM", "cpu"))
-    jax.config.update("jax_num_cpu_devices", local_devices)
+    platforms = jax.config.jax_platforms or os.environ.get("JAX_PLATFORMS", "")
+    if platforms.split(",")[0].strip().lower() == "cpu":
+        jax.config.update("jax_num_cpu_devices", local_devices)
     jax.distributed.initialize(
         coordinator_address=coordinator, num_processes=num_processes, process_id=process_id
     )
@@ -91,10 +93,10 @@ def multihost_surface_attributes(
     attrs: tuple[str, ...],
     **kwargs,
 ):
-    """Halo-exchange terrain stencil over a 2-D mesh spanning every process (DCN path).
+    """Halo-exchange terrain stencil over a 2-D mesh spanning every process (multi-host path).
 
     Each process contributes its horizontal band of the raster; the ppermute halo exchange
-    crosses process boundaries through the same collective path as on a pod slice. Returns
+    crosses process boundaries through the same collective path as across hosts. Returns
     the (len(attrs), H, W) result replicated on every process.
     """
     import jax
@@ -153,7 +155,7 @@ def _worker_main(coordinator: str, num_processes: int, process_id: int, local_de
     assert np.allclose(np.asarray(gamma), np.asarray(g1), rtol=1e-6, equal_nan=True), (gamma, g1)
 
     # Spatial decomposition across processes: halo-exchange stencil on a 2-D mesh whose row
-    # axis spans the process boundary (the pod-scale large-raster path)
+    # axis spans the process boundary (the multi-host large-raster path)
     from xdem_tpu.parallel.mesh import make_mesh
     from xdem_tpu.terrain.surfit import surface_attributes
 
@@ -194,8 +196,7 @@ def launch_local_cluster(num_processes: int = 2, local_devices: int = 4, timeout
         port = s.getsockname()[1]
     coordinator = f"127.0.0.1:{port}"
     env = dict(os.environ)
-    env["JAX_PLATFORMS"] = "cpu"
-    env["XDEM_TPU_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"  # a CPU test harness: no child may open an accelerator
     env.pop("XLA_FLAGS", None)
     repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")

@@ -1,9 +1,9 @@
-"""Halo-exchange sharded stencils: shard_map spatial decomposition with ppermute over ICI.
+"""Halo-exchange sharded stencils: shard_map spatial decomposition with ppermute.
 
-TPU-native replacement for the reference's tiled map-overlap multiprocessing
+Device replacement for the reference's tiled map-overlap multiprocessing
 (/root/reference/xdem/terrain/terrain.py:412-466, geoutils map_overlap_multiproc_save): the
 raster is sharded (block, block) over a 2-D device mesh; each device exchanges `halo` rows/cols
-with its mesh neighbors through jax.lax.ppermute (ICI neighbor exchange, no host round-trip),
+with its mesh neighbors through jax.lax.ppermute (device-to-device, no host round-trip),
 then applies the stencil kernel to its halo-padded block. Global boundaries are NaN-padded,
 matching the single-device NaN-pad semantics exactly.
 """

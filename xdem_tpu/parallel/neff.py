@@ -1,4 +1,4 @@
-"""Multi-chip effective-sample-number kernels: the covariance double sum sharded over ICI.
+"""Multi-device effective-sample-number kernels: the covariance double sum, sharded.
 
 neff_exact / neff_hugonnet_approx reduce sum_ij e_i e_j rho(|c_i - c_j|) (reference
 spatialstats.py:2175,2239). The single-chip kernel bounds memory by chunking rows

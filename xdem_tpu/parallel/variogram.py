@@ -3,8 +3,8 @@
 The reference parallelizes independent variogram runs with multiprocessing.Pool
 (/root/reference/xdem/spatialstats.py:1499-1509). Here the runs of the equidistant sampling
 scheme are sharded over a 1-D device mesh: each device computes pairwise distances and local
-per-lag-bin accumulators for its run shard (matmul-shaped blocks on the MXU), and the bins are
-combined with jax.lax.psum over ICI before the estimator is finalized.
+per-lag-bin accumulators for its run shard, and the bins are combined with jax.lax.psum
+before the estimator is finalized.
 
 Exact for every estimator, including the median-based dowd: the global per-bin median of
 |pair differences| is computed with a distributed selection — positive f32 values are

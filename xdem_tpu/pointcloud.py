@@ -7,6 +7,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
+from xdem_tpu._misc import import_optional
 from xdem_tpu.georef import CRS, transform_points
 
 
@@ -259,7 +260,7 @@ class PointCloud:
     def plot(self, ax: Any = None, cmap: str = "viridis", marker_size: float = 2.0,
              add_cbar: bool = True, **kwargs: Any):
         """Scatter the points colored by the data column; returns the axes."""
-        import matplotlib.pyplot as plt
+        plt = import_optional("matplotlib.pyplot", package_name="matplotlib")
 
         if ax is None:
             ax = plt.gca()

@@ -1,8 +1,7 @@
 """Surface-fit terrain attributes: fixed-stencil partial derivatives + closed-form algebra.
 
-TPU-first design: all requested derivative stencils are evaluated in ONE fused pass of shifted
-slice multiply-adds over a NaN-padded DEM (XLA fuses this into a single VPU kernel; a Pallas
-variant tiles the same loop over VMEM blocks). Validity is tracked separately as a footprint
+Design: all requested derivative stencils are evaluated in ONE fused pass of shifted slice
+multiply-adds over a NaN-padded DEM (XLA fuses this into one elementwise loop). Validity is tracked separately as a footprint
 erosion of the finite mask, reproducing the reference's NaN-dilation semantics
 (/root/reference/xdem/terrain/surfit.py:1185-1192) while letting zero weights be skipped.
 
@@ -63,8 +62,7 @@ ALL_STENCILS = {k: np.asarray(v, dtype=np.float64) for d in (_ZT, _HORN, _FL) fo
 
 
 # Resolution dividers per stencil (reference surfit.py:278-304): each raw stencil response
-# is divided by DIV_CONST[name] * res**DIV_POW[role]. Single source of truth shared by the
-# XLA path below and the Pallas kernel (terrain/pallas_kernels.py).
+# is divided by DIV_CONST[name] * res**DIV_POW[role].
 DIV_CONST = {
     "zt_d": 1.0, "zt_e": 1.0, "zt_f": 4.0, "zt_g": 2.0, "zt_h": 2.0,
     "h1": 8.0, "h2": 8.0,
@@ -128,7 +126,7 @@ def _apply_stencils(dem: jnp.ndarray, kernels: tuple[np.ndarray, ...]) -> list[j
     k = kernels[0].shape[0]
     pad = k // 2
     # Materialized (not fused) pad: XLA otherwise inlines the pad into every shifted read
-    # as per-element selects — see the fusion notes on _fractal_roughness_xla.
+    # as per-element selects — see the fusion notes on window.fractal_roughness.
     demp = jax.lax.optimization_barrier(jnp.pad(dem, pad, constant_values=0.0))
     h, w = dem.shape
     outs = [jnp.zeros_like(dem) for _ in kernels]
@@ -181,7 +179,7 @@ def surface_attributes(
     dem = jnp.asarray(dem)
     valid_in = jnp.isfinite(dem)
     # Mean-centering: all derivative stencils annihilate constants, and removing the large
-    # constant part keeps f32 stencil sums accurate (important on TPU where f64 is unavailable).
+    # constant part keeps f32 stencil sums accurate (the device computes in f32).
     # `center` may be passed in (halo-sharded path: the GLOBAL mean, so every block removes
     # the same constant and sharded == unsharded bitwise).
     if center is None:
@@ -219,12 +217,9 @@ def _attrs_from_derivs(
     hillshade_altitude: float = 45.0,
     hillshade_azimuth: float = 315.0,
     hillshade_z_factor: float = 1.0,
-    arctan=jnp.arctan,
-    arctan2=jnp.arctan2,
 ) -> list:
-    """Closed-form attribute algebra from derivative fields (shared by the XLA and Pallas
-    engines). Formulas from the reference surfit.py:590-943; no validity masking here.
-    `arctan`/`arctan2` are injectable because Pallas TPU has no native lowering for them."""
+    """Closed-form attribute algebra from derivative fields. Formulas from the reference
+    surfit.py:590-943; no validity masking here."""
     z_x = D.get("z_x")
     z_y = D.get("z_y")
     z_xx = D.get("z_xx")
@@ -237,9 +232,9 @@ def _attrs_from_derivs(
 
     slope = aspect = None
     if "slope" in attrs or "hillshade" in attrs:
-        slope = arctan(jnp.sqrt(grad2))
+        slope = jnp.arctan(jnp.sqrt(grad2))
     if "aspect" in attrs or "hillshade" in attrs:
-        aspect = (-arctan2(-z_x, z_y)) % (2 * jnp.pi)
+        aspect = (-jnp.arctan2(-z_x, z_y)) % (2 * jnp.pi)
 
     mean_c = unsphericity = None
     if geometric and ("max_curvature" in attrs or "min_curvature" in attrs):
@@ -265,7 +260,7 @@ def _attrs_from_derivs(
         elif a == "aspect":
             val = aspect
         elif a == "hillshade":
-            slopemap = arctan(jnp.tan(slope) * hillshade_z_factor) if hillshade_z_factor != 1.0 else slope
+            slopemap = jnp.arctan(jnp.tan(slope) * hillshade_z_factor) if hillshade_z_factor != 1.0 else slope
             azimuth_rad = jnp.deg2rad(360.0 - hillshade_azimuth)
             altitude_rad = jnp.deg2rad(hillshade_altitude)
             # GDAL-matching scaling — reference surfit.py:606-622.

@@ -2,7 +2,7 @@
 
 The reference processes rasters larger than memory with tiled map-overlap multiprocessing,
 writing per-tile GeoTIFFs (reference terrain.py:412-466, geoutils map_overlap_multiproc_save).
-The TPU-native equivalent streams fixed-shape row bands (one XLA compilation total) through
+The device equivalent streams fixed-shape row bands (one XLA compilation total) through
 the same fused kernels and writes each attribute straight into a pre-laid-out uncompressed
 GeoTIFF (io.StreamingRasterWriter), so peak host memory is one row band per attribute — the
 20k x 20k full-suite attribute stack (~22 GB) never exists in memory.

@@ -11,8 +11,8 @@ window poisons the output; formulas:
   * Rugosity (Jenness 2004): 8-triangle Heron surface-area ratio, 3x3 only —
     reference window.py:505-713
 
-TPU-first implementation: exact shifted-slice accumulation (no gather, no dynamic shapes; XLA
-fuses each attribute into one VPU kernel). Fractal roughness exploits monotonicity of
+Implementation: exact shifted-slice accumulation (no gather, no dynamic shapes; XLA fuses
+each attribute into one elementwise loop). Fractal roughness exploits monotonicity of
 clip(z - c, 0, w) to precompute per-q block maxima with separable reduce_window passes instead
 of materializing per-pixel windows.
 """
@@ -51,9 +51,9 @@ def windowed_indexes(
     w = window_size
     pad = w // 2
     # Materialize the NaN-padded raster (and slice the center from it, not from the
-    # separate input buffer): left fusible, XLA inlines the pad into every shifted read as
-    # per-element selects and splits the tap chain into HBM round-trips — see the fusion
-    # notes on _fractal_roughness_xla.
+    # separate input buffer): left fusible, XLA can inline the pad into every shifted read
+    # as per-element selects and split the tap chain into device-memory round trips — see
+    # the fusion notes on fractal_roughness.
     demp = jax.lax.optimization_barrier(jnp.pad(dem, pad, constant_values=jnp.nan))
     res = jnp.asarray(resolution, dtype=dem.dtype)
 
@@ -102,8 +102,7 @@ def windowed_indexes(
     return jnp.stack(out, axis=0)
 
 
-# Jenness (2004) 3x3 rugosity geometry, shared with the Pallas windowed kernel
-# (terrain/pallas_kernels.py) so the index tables cannot drift between engines.
+# Jenness (2004) 3x3 rugosity geometry.
 # 8 center-to-neighbor segments: (window position, planimetric length factor)
 RUGOSITY_CENTER_SEGS = (
     ((0, 0), math.sqrt(2.0)), ((0, 1), 1.0), ((0, 2), math.sqrt(2.0)), ((1, 0), 1.0),
@@ -147,52 +146,31 @@ def _rugosity(demp: jnp.ndarray, h: int, width: int, res: jnp.ndarray) -> jnp.nd
     return area / (L * L)
 
 
-#: Reference engine names (terrain.py engine="scipy"/"numba") map to the portable XLA path —
-#: they select host libraries there, which have no meaning on this backend.
-_ENGINE_ALIASES = {"scipy": "xla", "numba": "xla"}
+#: The reference's engine names select host libraries there (terrain.py engine="scipy" /
+#: "numba"); here every name runs the one XLA path.
+_ENGINES = ("xla", "scipy", "numba")
 
 
-def normalize_engine(engine: str | None) -> str | None:
-    """Validate an ``engine=`` value, mapping the reference's names onto ours.
+def normalize_engine(engine: str | None) -> str:
+    """Validate an ``engine=`` value; every accepted name selects the XLA path.
 
-    Returns None (auto-dispatch), "xla", or "pallas"; raises ValueError for anything else so
-    a typo cannot silently select a path.
+    Raises ValueError for anything else, so a typo cannot pass silently.
     """
-    if engine is None:
-        return None
-    e = _ENGINE_ALIASES.get(engine, engine)
-    if e not in ("xla", "pallas"):
-        raise ValueError(
-            f"Unknown engine {engine!r}: choose 'xla' or 'pallas' (the reference's "
-            "'scipy'/'numba' are accepted as aliases of 'xla')."
-        )
-    return e
-
-
-def fractal_roughness(dem: jnp.ndarray, window_size: int = 13, engine: str | None = None) -> jnp.ndarray:
-    """Fractal roughness with trace-time engine dispatch.
-
-    engine=None (auto): the portable XLA path, unless `config["prefer_pallas"]` is set and
-    the backend is a TPU, in which case the single-HBM-pass Pallas kernel is used (2x the
-    XLA path on full-bandwidth hardware; see config.py for why XLA is the default).
-    engine="xla"/"pallas" forces a path — useful to bisect a miscompare or sidestep the
-    Pallas tile-size VMEM constraints. Both engines are equivalence-tested.
-    """
-    engine = normalize_engine(engine)
-    if engine is None:
-        from xdem_tpu.config import config
-
-        engine = ("pallas" if config["prefer_pallas"] and jax.default_backend() == "tpu"
-                  and 5 <= window_size and window_size // 2 <= 8 else "xla")
+    if engine is None or engine in _ENGINES:
+        return "xla"
     if engine == "pallas":
-        from xdem_tpu.terrain.pallas_kernels import fractal_roughness_pallas
-
-        return fractal_roughness_pallas(dem, window_size=window_size)
-    return _fractal_roughness_xla(dem, window_size=window_size)
+        raise ValueError(
+            "engine='pallas' was removed: every terrain attribute runs on the XLA path "
+            "(engine='xla', the default)."
+        )
+    raise ValueError(
+        f"Unknown engine {engine!r}: choose 'xla' (the reference's 'scipy'/'numba' are "
+        "accepted as aliases of 'xla')."
+    )
 
 
 @partial(jax.jit, static_argnames=("window_size",))
-def _fractal_roughness_xla(dem: jnp.ndarray, window_size: int = 13) -> jnp.ndarray:
+def fractal_roughness(dem: jnp.ndarray, window_size: int = 13) -> jnp.ndarray:
     """Taud & Parrot (2005) fractal roughness via box counting, window >= 5.
 
     For each divisor q of w//2, the per-window voxel count is
@@ -202,14 +180,13 @@ def _fractal_roughness_xla(dem: jnp.ndarray, window_size: int = 13) -> jnp.ndarr
     (doubled up from the largest cached divisor) — O(sum n_q^2) shifted adds instead of
     per-pixel windows.
 
-    TPU fusion notes (a 2.8x win at 4096^2, measured against per-tap speed-of-light):
-    the padded raster and every block-max plane sit behind `optimization_barrier`, so the
-    ~200 shifted clip-add taps each read one flat materialized buffer. Left fusible, XLA
-    inlines the NaN pad into every tap (per-element selects) and splits the tap chain into
-    several HBM round-trips: 76 ms of compute for work whose measured attainable rate
-    (bench._window_tap_rate) is ~4 ms. The center is sliced from the same padded buffer —
-    a separate center operand measured ~3x slower tap fusions. Regression sums accumulate
-    inline (no (n_scales, h, w) stack to materialize).
+    Fusion notes: the padded raster and every block-max plane sit behind
+    `optimization_barrier`, so the ~200 shifted clip-add taps each read one flat
+    materialized buffer. Left fusible, XLA may inline the NaN pad into every tap
+    (per-element selects) and split the tap chain into several device-memory round trips.
+    The center is sliced from the same padded buffer rather than passed as a separate
+    operand. Regression sums accumulate inline (no (n_scales, h, w) stack to materialize).
+    Whether each barrier still pays under GPU fusion is an open measurement.
     """
     w = window_size
     if w < 3:

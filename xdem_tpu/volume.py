@@ -9,15 +9,18 @@ norm_regional_hypsometric_interpolation (:668).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Literal, Sequence
+from typing import TYPE_CHECKING, Any, Callable, Literal, Sequence
 
 import warnings
 
 import numpy as np
-import pandas as pd
 
+from xdem_tpu._misc import import_optional
 from xdem_tpu.ops.transfer import unmask
 from xdem_tpu.raster import Raster
+
+if TYPE_CHECKING:
+    import pandas as pd
 
 
 def _nmad(x: np.ndarray) -> float:
@@ -47,6 +50,7 @@ def hypsometric_binning(
     >>> list(df["value"])
     [0.0, 1.0, 2.0, 3.0]
     """
+    pd = import_optional("pandas")
     # Device fast path for the default median statistic on large / device-resident inputs:
     # segment-sort binned medians in one dispatch (f32 binning; a boundary pixel within
     # f32 eps of a bin edge may take the neighboring bin vs the host f64 path)
@@ -181,6 +185,7 @@ def calculate_hypsometry_area(
     timeframe: Literal["reference", "nonreference", "mean"] = "reference",
 ) -> pd.Series:
     """Representative area per elevation bin at a given timeframe (reference volume.py:239)."""
+    pd = import_optional("pandas")
     if timeframe not in ("reference", "nonreference", "mean"):
         raise ValueError(
             f"Argument 'timeframe={timeframe}' is invalid. Choices: ['reference', 'nonreference', 'mean']."
@@ -291,7 +296,7 @@ def local_hypsometric_interpolation(
     labels, n = ndimage.label(mask)
     out = np.where(mask, np.asarray(voided_ddem, np.float64), np.nan)
     if plot:
-        import matplotlib.pyplot as plt
+        plt = import_optional("matplotlib.pyplot", package_name="matplotlib")
 
         plt.matshow(mask & np.isfinite(np.asarray(voided_ddem, np.float64)))
         plt.title("inlier mask")
@@ -323,6 +328,7 @@ def get_regional_hypsometric_signal(
     min_coverage: float = 0.05,
 ) -> pd.DataFrame:
     """Normalized regional hypsometric signal: dh/dh_max vs normalized elevation (volume.py:568)."""
+    pd = import_optional("pandas")
     ddem, ref_dem = unmask(ddem), unmask(ref_dem)
     if glacier_index_map is None:
         glacier_index_map = np.ones(np.shape(ref_dem), dtype=int)
@@ -522,6 +528,7 @@ _REGIONAL_RUN = None  # cached module-level jit (see _HYPSO_RUN)
 
 def _regional_signal_device(ddem, ref, gid_map, n_bins: int, min_coverage: float) -> pd.DataFrame:
     """One-pass device regional hypsometric signal (per-glacier segment reductions)."""
+    pd = import_optional("pandas")
     global _REGIONAL_RUN
     import jax
     import jax.numpy as jnp

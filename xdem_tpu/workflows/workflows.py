@@ -15,6 +15,7 @@ from typing import Any
 
 import numpy as np
 
+from xdem_tpu._misc import import_optional
 from xdem_tpu.dem import DEM
 from xdem_tpu.raster import Raster
 
@@ -23,7 +24,7 @@ from xdem_tpu.raster import Raster
 
 def load_yaml_config(path: str) -> dict[str, Any]:
     """Load a YAML config, converting 'None'/'null' strings to None (reference :170-181)."""
-    import yaml
+    yaml = import_optional("yaml", package_name="pyyaml")
 
     with open(path) as f:
         cfg = yaml.safe_load(f)
